@@ -63,7 +63,6 @@ class Chain:
 
     stages: Sequence[object]  # algorithm instances
     fractions: Sequence[float]  # round fractions per stage (sums to <= 1)
-    selection_s: int = 0  # 0 => full participation
     selection_k: int = 16
     select_between_stages: bool = True
     selection_costs_round: bool = True
@@ -127,11 +126,10 @@ class Chain:
     def _select2(self, problem, anchor, cand, gen):
         """Lemma H.2 pick between the anchor and a candidate. Returns the
         pick and a 0-d bool tensor, True when it kept the anchor (ties keep
-        the anchor); nothing waits for the device."""
-        sel_s = (self.selection_s if self.selection_s > 0
-                 else problem.num_clients)
+        the anchor); nothing waits for the device. It scores every client."""
         vals = selection.empirical_values(
-            problem, [anchor, cand], gen, s=sel_s, k=self.selection_k)
+            problem, [anchor, cand], gen, s=problem.num_clients,
+            k=self.selection_k)
         keep = vals[0] <= vals[1]
         return tm.tree_where(keep, anchor, cand), keep
 

@@ -3,7 +3,7 @@
 An eager Python loop over rounds (JAX scans a compiled schedule). Round r
 draws from its own stream ``(seed, ROUND_TAG, r)`` on the problem's device.
 After every round the history records F(x̂_r) − F* in float64, where x̂_r is
-the algorithm's returned iterate (``eval_output``) or its current x.
+the algorithm's returned iterate.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ class RunResult:
 
 
 def run(algo, problem, x0, rounds: int, seed: int, *,
-        eval_output: bool = True, device=None) -> RunResult:
+        device=None) -> RunResult:
     """Run ``rounds`` communication rounds from ``x0``; record the
     suboptimality after each one. ``device`` must be the problem's."""
     dev = dev_lib.check_same(device, problem.device)
@@ -34,6 +34,5 @@ def run(algo, problem, x0, rounds: int, seed: int, *,
     for r in range(rounds):
         state = algo.round(problem, state,
                            dev_lib.generator(dev, seed, ROUND_TAG, r))
-        x_eval = algo.output(state) if eval_output else state.x
-        history[r] = problem.suboptimality(x_eval)
+        history[r] = problem.suboptimality(algo.output(state))
     return RunResult(state=state, x_hat=algo.output(state), history=history)

@@ -6,15 +6,10 @@ path and no switch: a CUDA tensor never reaches the plain version.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels.aggregate import aggregate, ref
 
 
-def chain_aggregate(x, g, c_i, c, weights=None, *, lr: float):
-    if weights is None:
-        weights = torch.full((g.shape[0],), 1.0 / g.shape[0],
-                             dtype=torch.float32, device=g.device)
+def chain_aggregate(x, g, c_i, c, weights, *, lr: float):
     if x.device.type == "cpu":
         return ref.chain_aggregate_ref(x, g, c_i, c, lr=lr, weights=weights)
     return aggregate.chain_aggregate(x, g, c_i, c, weights, lr=lr)

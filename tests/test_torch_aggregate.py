@@ -103,9 +103,11 @@ def test_chain_aggregate_ref_uniform_weights(jx):
         *(jx.jnp.asarray(a) for a in (x, g, ci, c)), lr=0.1)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
-    # ops fills the same uniform weights in before it dispatches
-    np.testing.assert_allclose(tops.chain_aggregate(*tx, lr=0.1).numpy(),
-                               out.numpy(), rtol=0, atol=0)
+    # explicit uniform weights through ops give the ref's default exactly
+    uniform = torch.full((4,), 0.25, dtype=torch.float32)
+    np.testing.assert_allclose(
+        tops.chain_aggregate(*tx, uniform, lr=0.1).numpy(), out.numpy(),
+        rtol=0, atol=0)
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
